@@ -1,4 +1,4 @@
-"""Batch-first alignment: the TPU production surface. The unit of work
+"""Batch-first alignment: the production surface. The unit of work
 is a batch of pairs, bucketed and padded onto fixed-shape device kernels
 (no reference counterpart — this replaces the OpenMP batch loop of
 align_benchmark.c:232-306)."""

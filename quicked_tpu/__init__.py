@@ -1,12 +1,13 @@
-"""quicked_tpu — a TPU-native pairwise sequence-alignment engine.
+"""quicked_tpu — a batched pairwise sequence-alignment engine in JAX.
 
 A from-scratch reimplementation of the capabilities of QuickEd
-(bound-and-align edit-distance alignment, reference: maxdoblas/QuickEd)
-designed TPU-first: batched Myers bit-parallel kernels in Pallas,
-host orchestration in JAX, data-parallel scaling via jax.sharding.
+(bound-and-align edit-distance alignment, reference: maxdoblas/QuickEd):
+batched Myers bit-parallel kernels (a Pallas-Triton kernel on the GPU,
+plain XLA elsewhere) beside a native C host runtime, host orchestration
+in JAX, data-parallel scaling via jax.sharding.
 
 Public surface (mirrors the reference C API, quicked/quicked.h:36-96,
-re-expressed batch-first for TPU):
+re-expressed batch-first):
 
   - QuickedAlgo / QuickedStatus / QuickedParams  (params.py)
   - QuickedAligner        — single-pair convenience API (api.py)

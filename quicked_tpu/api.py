@@ -3,8 +3,8 @@
 `QuickedAligner` mirrors the reference object API
 (quicked.h:56-67, bindings/cpp/quicked.hpp:47-69): set params, call
 align(), read score/cigar. `BatchAligner`/`align_batch` are the
-batch-first TPU production surface (the unit of work on TPU is a batch of
-pairs; see SURVEY.md §7).
+batch-first production surface (the unit of work is a batch of pairs;
+see SURVEY.md §7).
 """
 
 from __future__ import annotations
@@ -78,7 +78,7 @@ def _align_one_np(pattern: str, text: str, params: QuickedParams):
 class QuickedAligner:
     """Single-pair convenience aligner (reference API parity).
 
-    Routes through the TPU batch engine when params.use_kernels and a
+    Routes through the batch engine when params.use_kernels and a
     batch engine is available; otherwise uses the exact numpy model.
     """
 
@@ -161,7 +161,7 @@ def align_pair(pattern: str, text: str, params: QuickedParams | None = None):
 
 
 class BatchAligner:
-    """Batch-first aligner: the TPU production API.
+    """Batch-first aligner: the production API.
 
     align(pairs) -> BatchResult with per-pair status/score/cigar.
     """

@@ -69,6 +69,44 @@ def text_length_for(pattern_length: int, length_diff: float) -> int:
     return int(np.ceil(np.float32(pattern_length) * np.float32(length_diff)))
 
 
+def generate_pairs_bulk(num: int, length: int, error: float,
+                        seed: int) -> list[tuple[str, str]]:
+    """Equal-length pairs at benchmark scale, from a numpy stream: the
+    model of generate_pairs (a random text, the pattern a copy with
+    ceil(e*L) mismatch/deletion/insertion errors) with every error of a
+    pair drawn at once in the copy's own coordinates instead of one
+    after another. Not the pairs generate_pairs makes for the same
+    seed; about 100x faster (a 32,768 x 5 kbp batch in seconds)."""
+    import numpy as np
+
+    rng = np.random.default_rng(seed)
+    lut = np.frombuffer(b"ACGT", np.uint8)
+    n_err = int(error) if error >= 1.0 else \
+        int(np.ceil(np.float32(length) * np.float32(error)))
+    texts = rng.integers(0, 4, (num, length), dtype=np.uint8)
+    pos = rng.integers(0, length, (num, n_err))
+    kind = rng.integers(0, 3, (num, n_err))       # 0 X, 1 D, 2 I
+    shift = rng.integers(1, 4, (num, n_err), dtype=np.uint8)
+    ins = rng.integers(0, 4, (num, n_err), dtype=np.uint8)
+    pats = texts.copy()
+    rows = np.broadcast_to(np.arange(num)[:, None], pos.shape)
+    mism = kind == 0
+    pats[rows[mism], pos[mism]] = (pats[rows[mism], pos[mism]]
+                                   + shift[mism]) % 4
+    out = []
+    for i in range(num):
+        p = pats[i]
+        d, s = kind[i] == 1, kind[i] == 2
+        keep = np.ones(length, bool)
+        keep[pos[i][d]] = False
+        order = np.argsort(pos[i][s], kind="stable")
+        p = np.insert(p, pos[i][s][order], ins[i][s][order])
+        keep = np.insert(keep, pos[i][s][order], True)
+        out.append((lut[p[keep]].tobytes().decode(),
+                    lut[texts[i]].tobytes().decode()))
+    return out
+
+
 def generate_pairs(num: int, length: int, error: float = 0.04,
                    length_diff: float = 1.0, indels_num: int = 0,
                    indels_length: int = 0,

@@ -99,7 +99,7 @@ def _retain_large_allocations():
     scratch buffers (packed sequences, op planes, RLE output) are
     reused from the heap instead of munmap'd on every free. First-touch
     page faults on this class of VM are erratically slow (measured
-    10 ms..5 s for an 80 MB working set, PERFORMANCE.md); retaining the
+    10 ms..5 s for an 80 MB working set on a 4-core VM); retaining the
     pages makes warm batch calls deterministic. QUICKED_TPU_MALLOC_RETAIN=0
     opts out (lower RSS, variable latency)."""
     if os.environ.get("QUICKED_TPU_MALLOC_RETAIN", "1") == "0":

@@ -3,7 +3,7 @@
  *
  * The device kernels (JAX/Pallas) produce band-matrix bit planes; the
  * sequential host-side walks and CIGAR machinery live here, re-expressing
- * the reference's C host code as a TPU-framework host runtime:
+ * the reference's C host code as the batched engine's host runtime:
  *
  *   - banded traceback  (banded_backtrace_matrix_cutoff, bpm_banded.c:967-1036)
  *   - CIGAR edit score  (cigar_score_edit, cigar.c:274-289)
@@ -138,8 +138,8 @@ int64_t qh_traceback_banded(
  * (P, T, EBB, LANES): pair i walks tile i/LANES, lane i%LANES. One
  * call for the whole batch with a pthread pool inside — the per-pair
  * ctypes dispatch (~60 us/pair: argument marshalling + buffer setup
- * under the GIL) dominated the device full-fill lane's host stage at
- * short read lengths (PERFORMANCE.md workload-3 device lane).
+ * under the GIL) dominated a host traceback stage over device planes at
+ * short read lengths.
  *
  * Sequences arrive as concatenated blobs with offset/length arrays;
  * ops_out regions are pre-sized plen+tlen per pair (the walk fills
@@ -1306,7 +1306,7 @@ static inline void qh_adv1(uint64_t eq, uint64_t *pv_io, uint64_t *mv_io,
 typedef uint64_t qh_v2u64 __attribute__((vector_size(16)));
 
 /*
- * SIMD ws==2 window fill: anti-diagonal 2-lane pipeline (the TPU-host
+ * SIMD ws==2 window fill: anti-diagonal 2-lane pipeline (the host
  * analogue of the reference's SSE4.1 window kernel,
  * bpm_windowed.c:283-445 — same dataflow idea, GCC portable vectors).
  * At steady state the two independent cells of the window's 2-block

@@ -1,1 +1,2 @@
-"""Compute ops: exact semantic model (myers_np) and TPU Pallas kernels."""
+"""Compute ops: exact semantic model (myers_np), plain XLA kernels and the
+Pallas-Triton GPU kernel."""

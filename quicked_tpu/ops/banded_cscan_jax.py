@@ -6,9 +6,10 @@ because the Myers PHin/MHin carries chain block-to-block
 thousands, the ONT stage-3 regime) that chain is the whole problem: the
 pairs-as-lanes kernels get only B lanes of parallelism, and the
 reference's AVX2 answer — an anti-diagonal column pipeline
-(bpm_banded.c:349-788) — maps poorly onto 8x128 vregs.
+(bpm_banded.c:349-788) — fills only as many lanes as the pipeline is
+deep.
 
-TPU-first reformulation: the carry entering a block is one of THREE
+Reformulation: the carry entering a block is one of THREE
 states — P (PHin=1), Z (no carry), M (MHin=1) — and a block's carry-out
 as a function of carry-in is a map {P,Z,M} -> {P,Z,M}. Crucially the P
 and Z inputs produce the SAME carry-out (the injected low bit never
@@ -25,16 +26,16 @@ Map composition is associative, so the per-column chain becomes:
      levels) — the resolved carry-in of every block at once;
   4. select each block's final state among the three variants.
 
-All EBB blocks of a column advance in parallel on the VPU — full lane
-utilization even at B = 1, at ~3x the arithmetic of one advance plus a
-log-depth scan. Bit-exact: the resolved carries equal the sequential
+All EBB blocks of a column advance in parallel — EBB-wide vector work
+even at B = 1, at ~3x the arithmetic of one advance plus a log-depth
+scan. Bit-exact: the resolved carries equal the sequential
 chain's by construction (verified against banded_jax.run_banded).
 
-This module is the pure-JAX implementation (drop-in replacement for
-banded_scan_impl, score-only) and the algorithmic reference for the
-Pallas version (banded_cscan_pallas.py). The element-wise core
-(cscan_column) is layout-agnostic: the Pallas kernel reuses it with its
-own block-index layout and shift implementation.
+This module is a pure-JAX drop-in for banded_scan_impl (score-only):
+the GPU's deep-band device lane, priced against host C by the router.
+On an H100 it ran 16 x 30 kbp at EBB 72 in 0.61 s against 1.51 s for
+the anti-diagonal wavefront kernel it replaced. The element-wise core
+(cscan_column) is layout-agnostic.
 """
 
 from __future__ import annotations

@@ -4,8 +4,8 @@ Bit-exact batch re-expression of the reference banded kernels
 (bpm_banded.c:199-316 full / 791-964 score-only): every pair occupies one
 lane; 64-bit Myers blocks are (lo, hi) uint32 pairs; the band's dynamic
 cut/shift state (first/last block, per 64 columns) is carried as lane
-vectors. Runs on CPU and TPU; the Pallas kernel in banded_pallas.py is
-the TPU fast path with identical semantics.
+vectors. Runs on any JAX backend and is the plain reference that the
+GPU kernel in banded_triton.py is tested against.
 
 Band frame: shifted row k = column_block + band_block indexes the
 host-prepared PEQ (see batch_prep.py), making all memory access uniform
@@ -77,13 +77,14 @@ def _column_update(pv, mv, peq_win, lm_win, scw, char_enc, col_active,
     return (pv_lo, pv_hi), (mv_lo, mv_hi), scw, (c_first1, c_last1, c_last)
 
 
-def _maintenance(pv, mv, scw, first, last, captures, nb, batch_consts, EBB,
-                 full_variant):
-    """Band cut/shift every 64 columns
-    (bpm_banded.c:264-301 full / 889-922 score-only)."""
+def _band_cut(first, last, c_first1, c_last1, nb, batch_consts,
+              full_variant):
+    """The lane-vector decisions of the band cut/shift every 64 columns
+    (bpm_banded.c:264-301 full / 889-922 score-only). Returns
+    (do_shift, new first, new last). The shift itself moves rows
+    [new first, old last) down by one and resets row old last; every
+    kernel applies it in its own layout from these decisions."""
     cutoff, prolog, nbr, finish_v, tfinish = batch_consts
-    c_first1, c_last1, c_last = captures
-    B = first.shape[0]
     do_shift = (nb + 1) * W <= tfinish
     pos_h = nb
 
@@ -93,8 +94,22 @@ def _maintenance(pv, mv, scw, first, last, captures, nb, batch_consts, EBB,
     dec = do_shift & (~cut_lower) & (pos_h < prolog)
     first = first + inc.astype(I32) - dec.astype(I32)
 
-    # broadcasted_iota (not arange): this helper also runs inside the
-    # Pallas kernel, where 1-D iota is unsupported
+    cut_higher = (first + 2 < last) & (W * (last - 1) > finish_v) & \
+        ((c_last1 + (W * (last - 1) - finish_v)) > cutoff)
+    clamp_at = nbr - 1 if full_variant else nbr
+    clamp = (nb - prolog + last) >= clamp_at
+    last_n = last - (do_shift & (cut_higher | clamp)).astype(I32)
+    return do_shift, first, last_n
+
+
+def _maintenance(pv, mv, scw, first, last, captures, nb, batch_consts, EBB,
+                 full_variant):
+    """Band cut/shift every 64 columns
+    (bpm_banded.c:264-301 full / 889-922 score-only)."""
+    c_first1, c_last1, c_last = captures
+    do_shift, first, last_n = _band_cut(first, last, c_first1, c_last1, nb,
+                                        batch_consts, full_variant)
+
     j_idx = jax.lax.broadcasted_iota(I32, (EBB, 1), 0)
     m_shift = do_shift[None, :] & (j_idx >= first[None, :]) & \
         (j_idx < last[None, :])
@@ -118,14 +133,9 @@ def _maintenance(pv, mv, scw, first, last, captures, nb, batch_consts, EBB,
     # first > last while do_shift held. The band geometry makes that
     # unreachable (cutoff >= |Δlen|+1 couples NB/nbr/prolog so clamp
     # only trims the trailing blocks; fuzzed across extreme
-    # length-ratio/cutoff regimes against the wavefront/cscan kernels,
-    # which read scw[clip(last)] directly, with zero divergence).
-    cut_higher = (first + 2 < last) & (W * (last - 1) > finish_v) & \
-        ((c_last1 + (W * (last - 1) - finish_v)) > cutoff)
-    clamp_at = nbr - 1 if full_variant else nbr
-    clamp = (nb - prolog + last) >= clamp_at
-    last = last - (do_shift & (cut_higher | clamp)).astype(I32)
-    return pv, mv, scw, first, last
+    # length-ratio/cutoff regimes against kernels that read
+    # scw[clip(last)] directly, with zero divergence).
+    return pv, mv, scw, first, last_n
 
 
 def banded_scan_impl(peq_lo, peq_hi, lm_lo, lm_hi, text, init_scores,

@@ -1,7 +1,8 @@
 """Device-side banded traceback: a column scan over the full-fill planes.
 
 Consumes the (T, EBB, B) uint32 Pv/Mv band snapshots that the full
-banded kernels stream to HBM and walks the alignment path ON DEVICE,
+banded kernels write to device memory and walks the alignment path ON
+DEVICE,
 reproducing banded_backtrace_matrix_cutoff (bpm_banded.c:967-1036)
 cell-exactly: tie-break D, I, M, X with a RAW-character M-test.
 
@@ -13,16 +14,13 @@ lane (a) consumes its entire D-run in one iteration — run length =
 cursor - highest ZERO Pv bit at or below it, by unrolled u32 bit
 arithmetic — and (b) makes the single I/M/X decision from the previous
 column's Mv word and a raw-match bitplane packed once per batch. No
-per-lane gathers anywhere (XLA lowers take_along_axis on TPU to an
-O(rows x lanes) one-hot sweep per step — the measured round-3 cost of
-sequential walks, PERFORMANCE.md).
+per-lane gathers anywhere: the walk is a scan of lane-parallel bit
+arithmetic.
 
 The scan emits one (d_run, opcode) RECORD per column per lane instead
 of op characters, so the device->host readback is ~5 bytes/column
-rather than the 16*EBB bytes/column of raw band planes — the transfer
-that made the device full-fill lane lose end-to-end on PCIe-class
-hosts (VERDICT r3 missing-1). Hosts expand records to op strings with
-one vectorized np.repeat.
+rather than the 16*EBB bytes/column of raw band planes. Hosts expand
+records to op strings with one vectorized np.repeat.
 
 Validated against traceback_np.banded_traceback_pair (the byte-parity
 spec) on 480 randomized plane sets before the port; parity tests in
@@ -155,34 +153,27 @@ traceback_records = partial(jax.jit, static_argnames=("EBB", "PP"))(
 
 
 @partial(jax.jit, static_argnames=("EBB", "PP"))
-def _records_from_tiled(pv_lo, pv_hi, mv_lo, mv_hi, praw, traw, plen,
-                        tlen, prolog, *, EBB: int, PP: int):
-    """Tiled-plane front end: (P, T, EBB, LANES) planes straight from
-    the Pallas full kernel (no host round trip). Returns compact
-    records: runs u16 (NBITS = EBB*64 < 65536 always), opc i8."""
-    def untile(a):
-        P, T, E, L = a.shape
-        return jnp.moveaxis(a, 0, 2).reshape(T, E, P * L)
-
+def _records_lane_major(pv_lo, pv_hi, mv_lo, mv_hi, praw, traw, plen, tlen,
+                        prolog, *, EBB: int, PP: int):
+    """Records for the host expansion: runs u16 (NBITS = EBB*64 < 65536
+    always) and opcodes, transposed ON DEVICE to (B, T) — the host
+    walks records per lane, so a lane-major readback saves a strided
+    host pass."""
     runs, opcs, v_f, h_f = traceback_records_impl(
-        untile(pv_lo), untile(pv_hi), untile(mv_lo), untile(mv_hi),
-        praw, traw, plen, tlen, prolog, EBB=EBB, PP=PP)
-    # transpose ON DEVICE: the host expansion walks records per lane,
-    # so (B, T) contiguous readback saves a strided 12 MB host pass
+        pv_lo, pv_hi, mv_lo, mv_hi, praw, traw, plen, tlen, prolog,
+        EBB=EBB, PP=PP)
     return (runs.astype(jnp.uint16).T, opcs.T, v_f, h_f)
 
 
-def traceback_ops_from_tiled(mats_tiled, praw_np, traw_np, plen, tlen,
-                             prolog, *, EBB: int, n: int) -> list[str]:
-    """Device traceback over the Pallas full kernel's lane-tiled planes;
-    returns op strings for the first n lanes. mats_tiled: 4 device
-    arrays (P, T, EBB, LANES) — consumed IN PLACE on device; the only
-    device->host transfer is ~3 bytes/column of records (vs 16*EBB
-    bytes/column of raw planes, the cost that made the device full lane
-    lose end-to-end on PCIe hosts)."""
+def traceback_ops_device(mats, praw_np, traw_np, plen, tlen, prolog, *,
+                         EBB: int, n: int) -> list[str]:
+    """Device traceback over a full fill's (T, EBB, B) planes (4 device
+    arrays, consumed in place); returns op strings for the first n
+    lanes. The only device->host transfer is ~3 bytes/column of records
+    (vs 16*EBB bytes/column of raw planes)."""
     PP = praw_np.shape[0]
-    out = _records_from_tiled(
-        mats_tiled[0], mats_tiled[1], mats_tiled[2], mats_tiled[3],
+    out = _records_lane_major(
+        mats[0], mats[1], mats[2], mats[3],
         jnp.asarray(praw_np), jnp.asarray(traw_np),
         jnp.asarray(plen), jnp.asarray(tlen), jnp.asarray(prolog),
         EBB=EBB, PP=PP)
@@ -206,14 +197,20 @@ def prep_raw_frames(patterns_raw, texts_raw, T: int, PP: int,
     consulted at (v1 <= plen-1, h <= tlen-1): active lanes never read a
     pad row, and pad lanes (plen == 0) never activate."""
     B = pad_to_b or len(patterns_raw)
-    praw = np.zeros((PP, B), dtype=np.uint8)
-    traw = np.zeros((T, B), dtype=np.uint8)
-    for b, (p, t) in enumerate(zip(patterns_raw, texts_raw)):
-        pa = np.frombuffer(p, dtype=np.uint8) if isinstance(p, bytes) else p
-        ta = np.frombuffer(t, dtype=np.uint8) if isinstance(t, bytes) else t
-        praw[:len(pa), b] = pa
-        traw[:len(ta), b] = ta
-    return praw, traw
+    return _frame(patterns_raw, PP, B), _frame(texts_raw, T, B)
+
+
+def _frame(seqs, rows: int, B: int) -> np.ndarray:
+    """Byte strings (or uint8 arrays) as the columns of a zero-padded
+    (rows, B) frame: one concatenation and one scatter for the batch."""
+    lens = np.fromiter(map(len, seqs), np.int64, len(seqs))
+    flat = np.frombuffer(b"".join(seqs), np.uint8)
+    starts = np.cumsum(lens) - lens
+    lane = np.repeat(np.arange(len(seqs)), lens)
+    pos = np.arange(flat.size) - np.repeat(starts, lens)
+    out = np.zeros((B, rows), np.uint8)
+    out[lane, pos] = flat
+    return np.ascontiguousarray(out.T)
 
 
 def records_to_packed(runs_bt, opcs_bt, v_fin, h_fin,

@@ -5,7 +5,7 @@ per-pair band geometry (banded_matrix_allocate semantics,
 bpm_banded.c:112-135) is carried as lane vectors, and the PEQ is laid out
 in the *shifted band frame*: row k of the shifted PEQ holds pattern block
 (k - prolog_p), so the kernel's block index k = column_block + band_block
-is uniform across lanes (no per-lane gathers on TPU).
+is uniform across lanes (no per-lane gathers in the kernels).
 """
 
 from __future__ import annotations
@@ -129,9 +129,9 @@ class BandedBatch:
         """Analytic staged-upload size of a score pass (PEQ lo+hi,
         level masks lo+hi, text) — reading the arrays' .nbytes would
         trigger the lazy build the host venue exists to avoid.
-        packed_text: the pallas/sysband families stage text packed 4
-        chars per i32 word (1 byte/char); cscan stages `batch.text`
-        unpacked (4 bytes/char) — estimating those as packed biased
+        packed_text: the Triton kernel stages text packed 4 chars per
+        i32 word (1 byte/char); the XLA kernels stage `batch.text`
+        unpacked (4 bytes/char) — estimating those as packed biases
         routing toward the device 4x on slow links."""
         text_b = self.NB * W * self.B * (1 if packed_text else 4)
         return self.K * self.B * 4 * (5 * 2 + 2) + text_b
@@ -250,7 +250,7 @@ def prepare_banded_batch(patterns, texts, cutoffs, *, full: bool,
         nbr=vec(nbr, fill=1), finish_v=vec(finish_v),
         # pad lanes carry an EMPTY live band range [EBB-1, 0] (their
         # tfinish=0 keeps maintenance off): kernels that bound work by
-        # min(first)/max(last) over the lane tile (banded_pallas) must
+        # min(first)/max(last) over the lane tile (banded_triton) must
         # not have dead lanes pin the lower bound to row 0
         tfinish=vec(text_finish), first0=vec(prolog, fill=EBB - 1),
         last0=vec(ebb_p - 1, fill=0), plen=vec(plen, fill=1),

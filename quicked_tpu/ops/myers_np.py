@@ -1,6 +1,6 @@
 """Exact semantic model of the QuickEd algorithms (pure Python/NumPy).
 
-This module is the *specification* the TPU kernels are tested against: a
+This module is the *specification* the batched kernels are tested against: a
 bit-exact, per-pair re-derivation of the reference algorithms with 64-bit
 Myers blocks:
 

@@ -1,8 +1,8 @@
-"""64-bit word emulation on 32-bit lanes (TPU-native).
+"""64-bit word emulation on 32-bit lanes.
 
-The reference's Myers blocks are 64-bit words (bpm_commons.h:31-36). TPU
-VPU lanes are 32-bit, so every 64-bit word is carried as an (lo, hi) pair
-of uint32 arrays. All helpers are shape-polymorphic pure jnp functions and
+The reference's Myers blocks are 64-bit words (bpm_commons.h:31-36). The
+kernels carry every 64-bit word as an (lo, hi) pair of uint32 arrays
+(native 64-bit words on the GPU are a later, measured change). All helpers are shape-polymorphic pure jnp functions and
 work identically inside Pallas kernels and in plain XLA.
 """
 

@@ -147,10 +147,10 @@ def _lane_windows(arr, starts, COLS, B):
     device regimes STATIC shortcuts: T == COLS means every start is 0
     (the window IS the array — short reads fit one window), and small
     T - COLS means a handful of masked shifted copies. The general
-    take_along_axis gather is the measured hot cost of the kernel on
-    chip (one-hot lowering, ~40 ms per (128, 32768) window on v5e —
-    round 4); it remains only for wide-T batches (long reads, which
-    route to the host C walk anyway) and tiny lane counts.
+    take_along_axis gather lowers to an O(rows x lanes) one-hot sweep,
+    the kernel's hot cost where it runs; it remains only for wide-T
+    batches (long reads, which route to the host C walk anyway) and
+    tiny lane counts.
     """
     T = arr.shape[0]
     if T == COLS:
@@ -203,10 +203,8 @@ def windowed_scan_impl(peq_lo, peq_hi, text_enc, text_raw, pat_raw, plen,
     the cursor is set; in full mode M outranks D so the predicate is
     Pv & ~match) followed by the single column-consuming decision, with
     raw-char M-tests read from a bitplane packed once per window. Zero
-    per-lane gathers: round 3 measured the step walk's take_along_axis
-    lowering to an O(rows x lanes) one-hot sweep per step
-    (PERFORMANCE.md), which made the device kernel 0.17x the host C
-    rate. Validated cell-exact vs windowed_backtrace[_score_only]
+    per-lane gathers: a step walk's take_along_axis lowers to an
+    O(rows x lanes) one-hot sweep per step. Validated cell-exact vs windowed_backtrace[_score_only]
     semantics (bpm_windowed.c:448-561) on 1068 randomized model cases
     before the port."""
     B = plen.shape[0]
@@ -476,25 +474,19 @@ def expand_window_records(runs, opcs, pos_v, pos_h,
 
 
 def run_windowed_full(batch: WindowedBatch, window_size: int,
-                      overlap_size: int, device=None) -> list[str]:
+                      overlap_size: int) -> list[str]:
     """Full-CIGAR windowed mode: returns forward-order op strings per
     pair (windowed_compute CIGAR path, bpm_windowed.c:563-628). The
     kernel emits compact per-column (d_run, op) records; the boundary
     runs (bpm_windowed.c:599-627) land at the front after the
     reference's final reversal."""
-    import contextlib
-
     dummy = np.zeros(batch.B, dtype=np.int32)
-    ctx = jax.default_device(device) if device is not None \
-        else contextlib.nullcontext()
-    with ctx:
-        recs_run, recs_op, pos_v, pos_h = _windowed_scan(
-            jnp.asarray(batch.peq_lo), jnp.asarray(batch.peq_hi),
-            jnp.asarray(batch.text_enc), jnp.asarray(batch.text_raw),
-            jnp.asarray(batch.pat_raw), jnp.asarray(batch.plen),
-            jnp.asarray(batch.tlen), jnp.asarray(batch.num_words),
-            jnp.asarray(dummy), WS=window_size, OVL=overlap_size,
-            full=True)
+    recs_run, recs_op, pos_v, pos_h = _windowed_scan(
+        jnp.asarray(batch.peq_lo), jnp.asarray(batch.peq_hi),
+        jnp.asarray(batch.text_enc), jnp.asarray(batch.text_raw),
+        jnp.asarray(batch.pat_raw), jnp.asarray(batch.plen),
+        jnp.asarray(batch.tlen), jnp.asarray(batch.num_words),
+        jnp.asarray(dummy), WS=window_size, OVL=overlap_size, full=True)
     # one batched transfer (separate np.asarray calls pay a device
     # round trip each — latency-bound on high-latency links)
     recs_run, recs_op, pos_v, pos_h = jax.device_get(
@@ -507,10 +499,8 @@ def run_windowed_score(batch: WindowedBatch, hew_threshold: int,
                        window_size: int, overlap_size: int, device=None):
     """Execute the score-only windowed kernel; returns (score, hew) numpy.
 
-    `device` optionally pins execution (the cascade routes long-read
-    windowed bounds to a CPU device: the window walk is a long sequential
-    loop of narrow ops — accelerator-hostile — while the banded DP stays
-    on the TPU)."""
+    `device` optionally pins execution to one device (chip_smoke.py
+    times the GPU against the CPU backend with it)."""
     import contextlib
 
     hew_cells = np.full(batch.B,

@@ -11,7 +11,10 @@ result merge of BASELINE.md's north star.
 Launch: one process per host with the standard JAX distributed
 environment (jax.distributed.initialize args or
 JAX_COORDINATOR_ADDRESS / JAX_NUM_PROCESSES / JAX_PROCESS_ID), all
-writing to a shared filesystem. Degenerates to a plain single-process
+writing to a shared filesystem. Where several processes share a host,
+give each its own card with JAX_LOCAL_DEVICE_IDS (e.g. "0" for the
+first, "1" for the second): a JAX process otherwise reserves three
+quarters of every card it sees. Degenerates to a plain single-process
 run when no distributed environment is configured.
 """
 
@@ -43,10 +46,13 @@ def maybe_initialize_distributed() -> tuple[int, int]:
             # recognizes scheduler environments (SLURM, MPI, k8s), not
             # these generic variable names the launch docs promise.
             pid = os.environ.get("JAX_PROCESS_ID")
+            local = os.environ.get("JAX_LOCAL_DEVICE_IDS")
             jax.distributed.initialize(
                 coordinator_address=os.environ["JAX_COORDINATOR_ADDRESS"],
                 num_processes=int(os.environ["JAX_NUM_PROCESSES"]),
-                process_id=int(pid) if pid is not None else None)
+                process_id=int(pid) if pid is not None else None,
+                local_device_ids=([int(x) for x in local.split(",")]
+                                  if local else None))
         except RuntimeError as e:
             # Only an already-initialized runtime is benign; swallowing
             # e.g. an unreachable coordinator would silently degrade

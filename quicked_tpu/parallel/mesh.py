@@ -1,12 +1,12 @@
 """Data-parallel execution over a jax.sharding.Mesh.
 
 The reference's only concurrency is OpenMP threads over independent pairs
-(align_benchmark.c:232-306). The TPU-native equivalent: pairs are lanes of
-the batched kernels, and the lane axis is sharded over the device mesh
-with shard_map — each chip runs the identical scan on its lane shard over
-ICI-free independent work, results gather back in input order. Multi-host
-runs extend the same mesh over DCN via jax.distributed (the per-host data
-loader feeds each process its lane shard).
+(align_benchmark.c:232-306). Here pairs are lanes of the batched kernels,
+and the lane axis is sharded over a 1-D device mesh with shard_map: each
+card runs the device's score kernel (aligner/lanes.score_impl) on its lane
+shard, with no communication between shards, and results gather back in
+input order. Multi-host runs shard the input stream by process instead
+(parallel/distributed.py).
 """
 
 from __future__ import annotations
@@ -18,7 +18,6 @@ import jax.numpy as jnp
 import numpy as np
 from jax.sharding import Mesh, PartitionSpec as P
 
-from quicked_tpu.ops.banded_jax import banded_scan_impl
 from quicked_tpu.ops.batch_prep import BandedBatch
 from quicked_tpu.ops.windowed_jax import WindowedBatch, windowed_scan_impl
 
@@ -52,16 +51,16 @@ def make_mesh(n_devices: int | None = None, devices=None) -> Mesh:
     return Mesh(np.asarray(devices), ("data",))
 
 
-def shard_lanes(batch: BandedBatch, n_shards: int) -> BandedBatch:
-    """Pad the lane axis so it divides evenly across shards. The padded
-    batch is an internal execution artifact (run_banded_sharded strips
-    the pad from its outputs); its host-side sequence lists keep their
-    original length."""
+def shard_lanes(batch: BandedBatch, multiple: int) -> BandedBatch:
+    """Pad the lane axis to a multiple of `multiple` (shards x lanes per
+    kernel program). The padded batch is an internal execution artifact
+    (run_banded_sharded strips the pad from its outputs); its host-side
+    sequence lists keep their original length."""
     B = batch.B
-    rem = B % n_shards
+    rem = B % multiple
     if rem == 0:
         return batch
-    pad = n_shards - rem
+    pad = multiple - rem
     import dataclasses
 
     def pad_last(a, fill=0):
@@ -109,6 +108,14 @@ _BANDED_FNS: dict = {}
 _WINDOWED_FNS: dict = {}
 
 
+def _shard_multiple(B: int, n: int) -> int:
+    """Lane-count multiple for an n-way shard: n times the per-shard
+    kernel tile, so every shard's lanes fill whole programs."""
+    from quicked_tpu.ops.banded_triton import tile_lanes
+
+    return n * tile_lanes(-(-B // n))
+
+
 def run_banded_sharded(batch: BandedBatch, mesh: Mesh | None = None):
     """Execute the banded kernel with lanes sharded over the mesh.
 
@@ -117,10 +124,13 @@ def run_banded_sharded(batch: BandedBatch, mesh: Mesh | None = None):
     padding added for divisibility is stripped from the outputs)."""
     if mesh is None:
         mesh = make_mesh()
+    from quicked_tpu.aligner import lanes
+
     n = mesh.devices.size
     B_orig = batch.B
-    batch = shard_lanes(batch, n)
-    key = (mesh, batch.EBB, batch.NB, batch.full)
+    batch = shard_lanes(batch, _shard_multiple(batch.B, n))
+    impl = lanes.score_impl(lanes.current())
+    key = (mesh, batch.EBB, batch.NB, batch.full, impl)
     fn = _BANDED_FNS.get(key)
     if fn is None:
         in_specs, out_specs = _lane_specs(batch.full)
@@ -128,8 +138,7 @@ def run_banded_sharded(batch: BandedBatch, mesh: Mesh | None = None):
         # scan carries initialised inside the body are unvarying by
         # construction.
         fn = jax.jit(jax.shard_map(
-            partial(banded_scan_impl, EBB=batch.EBB, NB=batch.NB,
-                    full=batch.full),
+            partial(impl, EBB=batch.EBB, NB=batch.NB, full=batch.full),
             mesh=mesh, in_specs=in_specs, out_specs=out_specs,
             check_vma=False))
         _BANDED_FNS[key] = fn
@@ -154,13 +163,16 @@ def run_level_splits_sharded(batch: BandedBatch, mesh: Mesh | None = None):
     `batch` must be fwd/rev INTERLEAVED (lanes [f0, r0, f1, r1, ...])
     with an even per-shard width so each task's halves co-locate.
     Returns (pll, score_l, score_r, feasible) numpy arrays per task."""
+    from quicked_tpu.aligner import lanes
+
     if mesh is None:
         mesh = make_mesh()
     n = mesh.devices.size
     if batch.B % n or (batch.B // n) % 2:
         raise ValueError(f"interleaved lane count {batch.B} needs an even "
                          f"width per {n}-shard")
-    key = (mesh, batch.EBB, batch.NB)
+    impl = lanes.score_impl(lanes.current())
+    key = (mesh, batch.EBB, batch.NB, impl)
     fn = _HSPLIT_FNS.get(key)
     if fn is None:
         from quicked_tpu.ops.hirschberg_split_jax import (
@@ -171,7 +183,7 @@ def run_level_splits_sharded(batch: BandedBatch, mesh: Mesh | None = None):
 
         def shard_fn(*args):
             plen, tlen = args[-2], args[-1]
-            out = banded_scan_impl(*args[:-2], EBB=EBB, NB=NB, full=False)
+            out = impl(*args[:-2], EBB=EBB, NB=NB, full=False)
             return hsplit_epilogue_interleaved(
                 out["scores_by_k"], out["pv_lo"], out["pv_hi"],
                 out["mv_lo"], out["mv_hi"], out["first"], out["last"],

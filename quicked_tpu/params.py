@@ -20,7 +20,7 @@ QUICKED_FAST_WINDOW_OVERLAP = 1
 HIRSCHBERG_BUFFER_SIZE = 16 * 1024 * 1024
 
 # Myers block geometry of the *semantic* model: 64-row blocks, exactly like
-# the reference (bpm_commons.h:31-36). The TPU kernels emulate 64-bit words
+# the reference (bpm_commons.h:31-36). The device kernels emulate 64-bit words
 # as pairs of uint32 lanes but keep this geometry bit-exact.
 W = 64
 ALPHABET = 5
@@ -96,7 +96,7 @@ class QuickedParams:
 
     `force_scalar` switches the host C banded kernels to their scalar
     column loop (the reference's runtime SIMD toggle,
-    bpm_banded.c:1049-1059); the TPU kernels have a single vectorised
+    bpm_banded.c:1049-1059); the device kernels have a single vectorised
     implementation, so it only affects work routed to the host.
     Like the reference's toggle it is a PROCESS-GLOBAL switch in the C
     runtime: concurrent calls with different values race (last writer
@@ -113,8 +113,8 @@ class QuickedParams:
     hew_percentage: tuple[int, int] = (15, 15)
     only_score: bool = False
     force_scalar: bool = False
-    # TPU-specific execution knobs (no reference counterpart):
-    #   use_kernels: route compute through the Pallas kernels (True) or the
+    # Execution knobs with no reference counterpart:
+    #   use_kernels: route compute through the batch engine (True) or the
     #   exact numpy semantic model (False; used by tests / tiny inputs).
     use_kernels: bool = True
 

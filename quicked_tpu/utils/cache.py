@@ -1,45 +1,42 @@
-"""Persistent XLA compilation cache helper.
+"""Where the program keeps what it computes once and reuses: XLA's
+persistent compilation cache and the router's probe/rate cache.
 
-The kernels are scan-heavy; cold compiles are tens of seconds. Callers
-on the production path (CLI, bench) enable a persistent cache so
-repeated shapes hit disk instead of recompiling.
+Both live inside the checkout unless the environment says otherwise,
+at fixed paths (the compilation cache's path is part of its key, so a
+directory that moves never hits):
 
-The cache directory is scoped by a machine fingerprint (ISA flags +
-arch): CPU AOT cache entries embed machine features, and a cache
-populated on one machine class sprays `cpu_aot_loader` feature-mismatch
-errors over every run on another (the repo directory outlives any one
-host). Each machine class gets its own subdirectory instead.
+  - compilation cache: JAX_COMPILATION_CACHE_DIR verbatim when set (JAX
+    reads the variable itself; nothing else is set in code), else
+    <checkout>/.jax_cache;
+  - probe/rate cache: QUICKED_TPU_CACHE when set, else
+    <checkout>/.quicked_cache.
 """
 
 from __future__ import annotations
 
-import hashlib
 import os
-import platform
+
+REPO = os.path.dirname(os.path.dirname(os.path.dirname(
+    os.path.abspath(__file__))))
 
 
-def machine_tag() -> str:
-    """Short fingerprint of this machine class (arch + CPU flags)."""
-    feats = ""
-    try:
-        with open("/proc/cpuinfo") as f:
-            for line in f:
-                if line.startswith(("flags", "Features")):
-                    feats = line.strip()
-                    break
-    except OSError:
-        pass
-    key = f"{platform.machine()}|{feats}"
-    return hashlib.sha1(key.encode()).hexdigest()[:10]
+def compile_cache_dir() -> str:
+    return os.environ.get("JAX_COMPILATION_CACHE_DIR") or \
+        os.path.join(REPO, ".jax_cache")
 
 
-def enable_compile_cache(cache_dir: str | None = None) -> str:
+def state_dir() -> str:
+    return os.environ.get("QUICKED_TPU_CACHE") or \
+        os.path.join(REPO, ".quicked_cache")
+
+
+def enable_compile_cache() -> str:
+    """Turn on the persistent compilation cache; returns its directory."""
+    if os.environ.get("JAX_COMPILATION_CACHE_DIR"):
+        return os.environ["JAX_COMPILATION_CACHE_DIR"]
     import jax
 
-    cache_dir = cache_dir or os.environ.get(
-        "QUICKED_TPU_CACHE",
-        os.path.expanduser("~/.cache/quicked_tpu_jax"))
-    cache_dir = os.path.join(cache_dir, machine_tag())
+    cache_dir = compile_cache_dir()
     jax.config.update("jax_compilation_cache_dir", cache_dir)
     jax.config.update("jax_persistent_cache_min_compile_time_secs", 1.0)
     return cache_dir

@@ -1,4 +1,4 @@
-"""Runtime memory observability — the TPU-native analogue of the
+"""Runtime memory observability — the batched engine's analogue of the
 reference's allocator occupancy report (mm_allocator.c:573-604, which
 prints used/free/segment counts per allocator).
 

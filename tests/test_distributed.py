@@ -244,10 +244,9 @@ def _run_jax_distributed(tmp_path, n_procs: int, n_pairs: int,
         "distributed_align({seq!r}, {out!r}, "
         "QuickedParams(algo=QuickedAlgo.BANDED, bandwidth=30))"
     ).format(repo=repo, seq=seq, out=out, n=n_procs)
-    from quicked_tpu.utils.cache import machine_tag
+    from quicked_tpu.utils.cache import compile_cache_dir
     env_base = dict(os.environ,
-                    JAX_COMPILATION_CACHE_DIR=os.path.join(
-                        repo, ".jax_cache", machine_tag()),
+                    JAX_COMPILATION_CACHE_DIR=compile_cache_dir(),
                     JAX_PERSISTENT_CACHE_MIN_COMPILE_TIME_SECS="1",
                     JAX_COORDINATOR_ADDRESS=f"127.0.0.1:{port}",
                     JAX_NUM_PROCESSES=str(n_procs))
@@ -285,3 +284,26 @@ def test_three_process_jax_distributed_uneven(tmp_path):
                       process_index=0, process_count=1)
     with open(out1) as f:
         assert f.read() == out3
+
+
+def test_local_device_ids_from_launch_env(monkeypatch):
+    """Several processes on one host: each is limited to the card the
+    launcher names in JAX_LOCAL_DEVICE_IDS (unset: JAX's default, all
+    local devices)."""
+    import jax
+
+    from quicked_tpu.parallel import distributed as dist
+
+    seen = []
+    monkeypatch.setattr(jax.distributed, "initialize",
+                        lambda **kw: seen.append(kw))
+    monkeypatch.setenv("JAX_COORDINATOR_ADDRESS", "localhost:1")
+    monkeypatch.setenv("JAX_NUM_PROCESSES", "2")
+    monkeypatch.setenv("JAX_PROCESS_ID", "1")
+    monkeypatch.setenv("JAX_LOCAL_DEVICE_IDS", "1")
+    dist.maybe_initialize_distributed()
+    monkeypatch.delenv("JAX_LOCAL_DEVICE_IDS")
+    dist.maybe_initialize_distributed()
+    assert [kw["local_device_ids"] for kw in seen] == [[1], None]
+    assert all(kw["process_id"] == 1 and kw["num_processes"] == 2
+               for kw in seen)

@@ -1,6 +1,6 @@
 """Device-fused Hirschberg split levels (score kernel + epilogue on
 device, O(tasks) readback) vs the numpy spec path — both single-device
-(interpret) and sharded over a mesh."""
+(the Triton kernel in interpret mode) and sharded over a mesh."""
 
 import numpy as np
 import pytest
@@ -63,12 +63,12 @@ def _interleaved_batch(pats, txts, cos, mids, mids_r, pad_to_b):
     (700, 0.2, 4),
 ])
 def test_hsplit_fused_pallas_interpret_parity(length, error, seed):
-    from quicked_tpu.aligner.batch import _hsplit_fused_pallas
+    from quicked_tpu.aligner.batch import _hsplit_fused
 
     pats, txts, cos, mids, mids_r = _tasks(5, length, error, seed)
     want = _spec_splits(pats, txts, cos, mids, mids_r)
     batch = _interleaved_batch(pats, txts, cos, mids, mids_r, pad_to_b=16)
-    pll, sl, sr, ok = _hsplit_fused_pallas(batch)
+    pll, sl, sr, ok = _hsplit_fused(batch, interpret=True)
     for j, w in enumerate(want):
         if w is None:
             assert not ok[j], j

@@ -1,15 +1,16 @@
-"""Parity: the Pallas BandEd score kernel vs the XLA scan kernel.
+"""Parity: the Pallas-Triton BandEd kernel (interpret mode) vs the XLA
+scan kernel and the exact model.
 
-On CPU this runs the Pallas interpreter (bit-exact semantics of the
-Mosaic kernel); on a real TPU the compiled kernel is exercised by
-bench/verify runs.
+Interpret mode runs the kernel's own dataflow on the CPU; the compiled
+kernel is checked on the card by chip_smoke.py and the `gpu`-marked
+tests (tests/test_gpu.py).
 """
 
 import numpy as np
 
 from quicked_tpu import generate
 from quicked_tpu.ops.banded_jax import run_banded
-from quicked_tpu.ops.banded_pallas import LANES, run_banded_pallas
+from quicked_tpu.ops.banded_triton import TILE_MIN, run_banded_triton
 from quicked_tpu.ops.batch_prep import prepare_banded_batch
 
 
@@ -25,51 +26,43 @@ def test_pallas_banded_score_parity_interpret():
     cutoffs = [max(len(p), len(t)) * 40 // 100 for p, t in pairs]
     batch = prepare_banded_batch(pats, txts, cutoffs, full=False)
     seq = run_banded(batch)
-    pal = run_banded_pallas(batch, interpret=True)
+    pal = run_banded_triton(batch, interpret=True)
+    assert set(pal) == set(seq)
     for k in pal:
         np.testing.assert_array_equal(seq[k], pal[k], err_msg=k)
 
 
 def test_pallas_banded_full_parity_interpret():
     """Full-matrix variant: every stored band column must equal the XLA
-    scan's snapshots, and the traceback CIGARs must match the model."""
+    scan's snapshots."""
     pairs = _pairs(5, 200, 0.12, 7) + _pairs(2, 300, 0.2, 8, 1.15)
     pats = [p for p, _ in pairs]
     txts = [t for _, t in pairs]
     cutoffs = [max(len(p), len(t)) * 30 // 100 for p, t in pairs]
     batch = prepare_banded_batch(pats, txts, cutoffs, full=True)
     seq = run_banded(batch)
-    pal = run_banded_pallas(batch, interpret=True)
-    for k in ("scores_by_k", "pv_lo", "pv_hi", "mv_lo", "mv_hi",
-              "first", "last"):
+    pal = run_banded_triton(batch, interpret=True)
+    assert set(pal) == set(seq)
+    for k in seq:
         np.testing.assert_array_equal(seq[k], pal[k], err_msg=k)
-    # snapshot planes: untile and compare against the scan's matrices
-    from quicked_tpu.ops.banded_pallas import _untile_lanes
-    lanes = pal["lanes"]
-    B, EBB = batch.B, batch.EBB
-    for name, tiled in zip(("mat_pv_lo", "mat_pv_hi", "mat_mv_lo",
-                            "mat_mv_hi"), pal["mats_tiled"]):
-        host = _untile_lanes(tiled)[:, :EBB, :B]
-        np.testing.assert_array_equal(seq[name], host, err_msg=name)
 
 
 def test_pallas_full_traceback_matches_model():
-    from quicked_tpu import native
-    from quicked_tpu.aligner.batch import _traceback_tiled
+    """The kernel's (T, EBB, B) planes walked by the host traceback."""
     from quicked_tpu.ops import myers_np
+    from quicked_tpu.ops.traceback_np import banded_traceback_batch
 
-    if not native.available():
-        import pytest
-        pytest.skip("native lib unavailable")
     pairs = _pairs(4, 180, 0.15, 9)
     pats = [p for p, _ in pairs]
     txts = [t for _, t in pairs]
     cutoffs = [70] * 4
     batch = prepare_banded_batch(pats, txts, cutoffs, full=True)
-    pal = run_banded_pallas(batch, interpret=True)
-    sub = list(range(4))
-    ops = _traceback_tiled(pal["mats_tiled"], pal["lanes"], batch, sub,
-                           pats, txts)
+    pal = run_banded_triton(batch, interpret=True)
+    ops = banded_traceback_batch(
+        pal["mat_pv_lo"], pal["mat_pv_hi"], pal["mat_mv_lo"],
+        pal["mat_mv_hi"], list(range(4)), [p.encode() for p in pats],
+        [t.encode() for t in txts],
+        [int(batch.prolog[j]) for j in range(4)])
     for i in range(4):
         _, expect = myers_np.banded_align(pats[i], txts[i],
                                           int(cutoffs[i]))
@@ -89,7 +82,8 @@ def test_pallas_full_device_traceback_matches_model():
     batch = prepare_banded_batch(pats, txts, cutoffs, full=True)
     praws = [_raw_bytes(p).tobytes() for p in pats]
     traws = [_raw_bytes(t).tobytes() for t in txts]
-    sc, ops = _run_device_full_tb(batch, praws, traws, len(pairs))
+    sc, ops = _run_device_full_tb(batch, praws, traws, len(pairs),
+                                  interpret=True)
     for i in range(len(pairs)):
         exp_sc, expect = myers_np.banded_align(pats[i], txts[i],
                                                int(cutoffs[i]))
@@ -99,29 +93,13 @@ def test_pallas_full_device_traceback_matches_model():
 
 def test_pallas_lane_padding():
     # fewer pairs than one lane tile: padding must not disturb results
-    assert LANES == 1024
     pairs = _pairs(3, 150, 0.1, 3)
     pats = [p for p, _ in pairs]
     txts = [t for _, t in pairs]
     cutoffs = [60] * 3
     batch = prepare_banded_batch(pats, txts, cutoffs, full=False)
+    assert batch.B < TILE_MIN
     seq = run_banded(batch)
-    pal = run_banded_pallas(batch, interpret=True)
+    pal = run_banded_triton(batch, interpret=True)
     np.testing.assert_array_equal(seq["scores_by_k"], pal["scores_by_k"])
-
-
-def test_full_lanes_vmem_model():
-    """full_lanes: widest tile within VMEM, monotone in EBB8/NB, never
-    below the Mosaic lane floor; the short-read geometry gets the wide
-    tile (the fixed 256-lane tile starved the VPU, PERFORMANCE.md)."""
-    from quicked_tpu.ops.banded_pallas import (LANES_FULL_MIN, VMEM_BUDGET,
-                                               full_lanes)
-
-    assert full_lanes(8, 2) == 2048
-    assert full_lanes(128, 64) <= 512
-    last = 1 << 30
-    for ebb8 in (8, 16, 32, 64, 128):
-        lanes = full_lanes(ebb8, 16)
-        assert LANES_FULL_MIN <= lanes <= 2048
-        assert lanes <= last            # monotone non-increasing
-        last = lanes
+    assert pal["scores_by_k"].shape == seq["scores_by_k"].shape

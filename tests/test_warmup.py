@@ -3,12 +3,10 @@ served from the host lane while the device kernel compiles in the
 background — first-contact latency control, venue-only semantics."""
 
 import threading
-import types
 
 import numpy as np
 import pytest
 
-import jax
 
 from quicked_tpu import native
 from quicked_tpu.utils import warmup
@@ -29,14 +27,17 @@ def _clean_warmup_state():
 def test_defer_cold_runs_warm_fn_once_then_inline():
     calls = []
     done = threading.Event()
+    release = threading.Event()     # holds the warmup in flight
 
     def warm_fn():
+        release.wait(30)
         calls.append(threading.current_thread().name)
         done.set()
 
     key = ("fam", 1, 2)
     assert warmup.defer_cold(key, warm_fn) is True      # cold: defer
     assert warmup.defer_cold(key, warm_fn) is True      # still inflight
+    release.set()
     assert done.wait(30)
     assert warmup.wait_idle(30)
     assert warmup.defer_cold(key, warm_fn) is False     # warm: inline
@@ -74,20 +75,13 @@ def test_windowed_cold_deferral_routes_host_then_device(monkeypatch):
     device kernel warms; after warmup the same shape runs inline — and
     both give identical results."""
     from quicked_tpu.aligner import batch as ab
-    from quicked_tpu.aligner import cascade
+    from quicked_tpu.aligner import cascade, lanes
     from quicked_tpu import generate
     from quicked_tpu.ops import myers_np
 
-    real_devices = jax.devices
-
-    def fake_devices(*a, **k):
-        # accelerator-looking platform; execution still lands on the
-        # CPU backend (run_windowed_score gets device=None)
-        return [types.SimpleNamespace(platform="fake_accel")] \
-            if a == () else real_devices(*a, **k)
-
-    monkeypatch.setattr(jax, "devices", fake_devices)
-    monkeypatch.setattr(cascade, "_windowed_device", lambda *a: None)
+    # the GPU's lane table (device windowed buckets); execution still
+    # lands on the CPU backend
+    monkeypatch.setattr(lanes, "current", lambda: lanes.for_platform("gpu"))
 
     pairs = list(generate.generate_pairs(4, 200, error=0.1, seed=91))
     pats = [p for p, _ in pairs]
